@@ -1,6 +1,6 @@
 """End-to-end quickstart: server + client in one process.
 
-Run:  python examples/quickstart.py            (TPU if available)
+Run:  python examples/quickstart.py            (GPU if available)
       PYTHONPATH=. JAX_PLATFORMS=cpu python examples/quickstart.py
 """
 

@@ -1,9 +1,10 @@
-"""fenix_tpu — a TPU-native vector database / similarity-search engine.
+"""fenix_tpu — an accelerator-resident vector database / similarity-search
+engine, served on NVIDIA GPUs.
 
 Capability surface of nrlugg/fenix (Arrow-Flight-served tables, k-means
-coder + IVF index lifecycle, filtered exact/ANN kNN) re-designed for TPU:
-device-resident columnar storage, blocked MXU distance kernels with
-fused streaming top-k, predicate/probe masks pushed below the matmul,
+coder + IVF index lifecycle, filtered exact/ANN kNN) re-designed for
+JAX: device-resident columnar storage, a fused matmul + bucket-max
+phase-1 kernel with two-phase exact top-k, predicate/probe masks pushed below the matmul,
 and mesh-sharded multi-chip execution (fenix_tpu.parallel).
 """
 

@@ -6,7 +6,7 @@ coder.py:24-29), ``make`` trains with permuted batches per epoch
 (coder.py:94-127), ``load``/``list``/``drop`` manage artifacts, and
 ``call`` ranks composite cells for a target (coder.py:143-194).
 
-Differences by design (TPU-first):
+Differences by design (accelerator-first):
 - training is a jit'd, codebook-vmapped Lloyd step on device
   (fenix_tpu.ops.kmeans) instead of torch.compile;
 - artifacts are ``.npz`` (codebooks + JSON config) instead of

@@ -16,7 +16,7 @@ Usage::
     f = (expr.field("id") < 100) & expr.field("tag").isin([1, 2, 3])
     f.to_json()                    # wire form
     f.mask(table)                  # numpy bool mask (host, Arrow kernels)
-    f.device_mask(device_columns)  # jax bool mask (TPU)
+    f.device_mask(device_columns)  # jax bool mask (device)
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ def _decode_filter(obj: Any) -> expr_mod.Expr | None:
 
 
 class Server(fl.FlightServerBase):
-    """Stateless Flight front-end over the TPU query engine."""
+    """Stateless Flight front-end over the device query engine."""
 
     def __init__(self, root: str, host: str = "0.0.0.0", port: int = 9001) -> None:
         self.root = os.path.abspath(root)

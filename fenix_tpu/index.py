@@ -7,7 +7,7 @@ assigns every source row to its nearest composite cell and writes
 the source table (index.py:19-34); ``call`` is the query engine
 (index.py:81-170), here delegated to fenix_tpu.engine.executor.
 
-TPU-first: assignment is per-codebook argmin on device in large blocks
+Accelerator-first: assignment is per-codebook argmin on device in large blocks
 (sum-separable, O(N·n·k·d)) — the reference scores all k^n composite
 cells per row (coder.py:171-181) even though the argmin factorizes.
 """

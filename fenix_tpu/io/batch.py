@@ -5,8 +5,8 @@ Capability parity: /root/reference/src/fenix/io/batch/batch.py
 ``imap`` wraps it in a torch DataLoader worker pool — dead code in the
 reference, SURVEY.md §2.2.5). Here the iterator yields dense numpy
 blocks (via the native threaded gather) and ``prefetch_to_device``
-double-buffers host→device transfers so the TPU never waits on ingest
-— the DataLoader-worker-pool role, TPU-shaped (SURVEY.md §2.3 last row).
+double-buffers host→device transfers so the device never waits on
+ingest — the DataLoader-worker-pool role (SURVEY.md §2.3 last row).
 """
 
 from __future__ import annotations

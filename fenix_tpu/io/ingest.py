@@ -4,7 +4,7 @@ Role parity: /root/reference/src/fenix/io/torch/torch.py:6-10 (zero-copy
 FixedSizeList → Tensor via DLPack). Here the bridge targets ``jax.Array``:
 Arrow FixedSizeList columns are viewed as dense ``[rows, list_size]``
 numpy arrays without copying on the host, then transferred to device
-(padded to TPU-friendly block multiples, with a validity row count kept
+(padded to kernel-friendly block multiples, with a validity row count kept
 alongside so kernels can mask the tail).
 """
 

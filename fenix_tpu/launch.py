@@ -10,6 +10,7 @@ import argparse
 import logging
 
 from fenix_tpu.flight import Server
+from fenix_tpu.utils.jax_cache import configure_compile_cache
 
 logging.basicConfig()
 LOGGER = logging.getLogger("fenix_tpu")
@@ -28,6 +29,7 @@ def main() -> None:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=9001)
     args = parser.parse_args()
+    configure_compile_cache()
     launch(args.root, args.host, args.port)
 
 

@@ -3,29 +3,75 @@
 Role parity: the reference leans on Arrow C++ take/filter and libtorch
 DataLoader workers for its host hot loops (SURVEY.md §2.3); here they
 are first-party C++ with a transparent numpy fallback, so the engine
-works in environments where the .so has not been built.
+works where no C++ compiler is present.
 
-Build: ``make -C native`` (g++ only; no external deps).
+The library is built from source at first use into ``native/build/``
+(ignored by git), under a name keyed by the source and the flags, so an
+edited source is rebuilt and a stale build is never loaded. Portable
+flags only: no ``-march=native``, so a build stays valid on any CPU of
+the same architecture. Concurrent first uses (test workers, server
+threads) each compile to a temporary file and rename it into place.
+To build ahead of time: ``python -c "from fenix_tpu import native; print(native.build())"``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "..", "native", "libfenix_host.so")
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "native")
+_SRC = os.path.join(_NATIVE_DIR, "fenix_host.cpp")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 _lib: ctypes.CDLL | None = None
+_tried = False  # a failed build is not retried within the process
+
+
+def lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        key = hashlib.sha1(f.read() + " ".join(_CXXFLAGS).encode()).hexdigest()[:12]
+    return os.path.abspath(os.path.join(_BUILD_DIR, f"libfenix_host-{key}.so"))
+
+
+def build() -> str | None:
+    """Compile the library unless it exists; its path, or None when no
+    compiler is found or the build fails (callers fall back to numpy)."""
+    path = lib_path()
+    if os.path.exists(path):
+        return path
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        return None
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, _SRC], check=True, capture_output=True)
+        os.replace(tmp, path)
+    except (OSError, subprocess.CalledProcessError) as e:
+        logging.getLogger("fenix_tpu").warning("native build failed: %s", e)
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def _load() -> ctypes.CDLL | None:
-    global _lib
-    if _lib is not None:
+    global _lib, _tried
+    if _lib is not None or _tried:
         return _lib
-    path = os.path.abspath(_LIB_PATH)
-    if not os.path.exists(path):
+    _tried = True
+    path = build()
+    if path is None:
         return None
     lib = ctypes.CDLL(path)
     lib.fenix_pack_rows.argtypes = [

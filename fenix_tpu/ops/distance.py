@@ -1,4 +1,4 @@
-"""Distance metrics on TPU (metric canon, pairwise matrices).
+"""Distance metrics on device (metric canon, pairwise matrices).
 
 Semantics parity: /root/reference/src/fenix/io/coder/coder.py:38-50
 (distance: l2 via cdist, cosine as ``0.5 - 0.5·cos``, dot as negated
@@ -55,8 +55,8 @@ def pairwise_distance(
     match the reference bit-for-bit up to fp32 reduction order.
 
     ``precision``: pass ``jax.lax.Precision.HIGHEST`` on user-facing
-    value paths (TPU DEFAULT rounds fp32 matmul inputs to bf16); leave
-    None for selection-tolerant callers (k-means steps, cell ranking).
+    value paths (on the GPU the default runs fp32 matmuls in TF32);
+    leave None for selection-tolerant callers (k-means steps).
     """
     metric = canonical_metric(metric)
 

@@ -1,4 +1,4 @@
-"""Multi-codebook k-means (Lloyd) iteration, jit/vmap on TPU.
+"""Multi-codebook k-means (Lloyd) iteration, jit/vmap on device.
 
 Semantics parity: /root/reference/src/fenix/io/coder/coder.py:53-65 —
 one Lloyd step per batch: assign each sample to its nearest centroid,

@@ -6,11 +6,11 @@ The reference delegates all of this to Arrow C++ / DuckDB on the host
 the DuckDB baseline). Here they are JAX/XLA computations over padded
 dense columns so they compose with the distance kernels on device.
 
-TPU-first shape discipline: every operator takes/returns **static**
+Accelerator shape discipline: every operator takes/returns **static**
 shapes; variable-size results come back as (padded arrays, valid
 count). Sort-based implementations are used where a CPU engine would
-hash — on TPU a bitonic/radix sort over lanes beats pointer-chasing
-hash tables, and XLA lowers ``sort`` to the native sort unit.
+hash — a data-parallel sort beats pointer-chasing hash tables on the
+device.
 """
 
 from __future__ import annotations
@@ -37,14 +37,9 @@ def argsort_stable(keys: jax.Array) -> jax.Array:
     return perm
 
 
-# A radix-sort merge contender (LSD counting sort from one-hot prefix
-# sums) was implemented and measured against all_gather + lax.top_k at
-# pod-scale S·k (benchmarks/exp_merge.py, which keeps the contender
-# implementation): top_k won every cell by 10-120× — TPU top_k lowers
-# to the native sort unit, while the radix one-hot cumsum is 8 passes
-# of dense [n, 16] work plus scatters. See docs/DESIGN.md "Multi-chip
-# execution"; the shipping merge (parallel/search.merge_candidates) is
-# the measured winner.
+# The shipping candidate merge (parallel/search.merge_candidates) is
+# all_gather + lax.top_k; a radix-sort contender lost to it on the
+# previous accelerator and is unmeasured on the H100.
 
 
 # -- filter → compaction --------------------------------------------------
@@ -141,7 +136,7 @@ def join_inner_sorted(
     Returns (left_idx [max_matches], right_idx [max_matches], count);
     pairs beyond ``count`` are (−1, −1). Pairs are emitted in left-row
     order, duplicates in right-row order — fully deterministic.
-    Searchsorted + bounded expansion (the TPU-shaped analog of a hash
+    Searchsorted + bounded expansion (the static-shape analog of a hash
     join probe; static ``max_matches`` replaces dynamic output).
 
     ``n_valid``: length of the VALID PREFIX of the sorted build side,
@@ -321,8 +316,8 @@ def group_sum_count(
     return group_keys, jnp.where(valid, s, 0), jnp.where(valid, c, 0), n_groups
 
 
-# Exact integer aggregation: TPU vector lanes are 32-bit (no native
-# int64/float64), so exact int64 sums come from LIMB DECOMPOSITION —
+# Exact integer aggregation: JAX runs with 64-bit types off (int32
+# lanes on the device), so exact int64 sums come from LIMB DECOMPOSITION —
 # the uint32 reinterpretation of each value splits into b-bit limbs,
 # every limb segment-sums exactly in int32, and the host recombines in
 # int64: sum = Σ Sⱼ·2^(bj) − 2^32·n_negative. (VERDICT r1 #6 / r2

@@ -1,6 +1,6 @@
 """Two-phase exact top-k search: bucket maxima → select → rescore.
 
-The hot loop of the engine (SURVEY.md §7 "fused top-k on TPU"). The
+The hot loop of the engine (SURVEY.md §7 "fused top-k"). The
 single-pass scan in fenix_tpu.ops.distance materializes a [Q, block]
 score tile in HBM per step and runs ``lax.top_k`` against it — sort
 cost and tile traffic dominate. This module splits the search:
@@ -9,29 +9,28 @@ cost and tile traffic dominate. This module splits the search:
 ``bucket`` rows (128, or 32 for large query batches), the max of the
 fused score ``s = (q·v) · aux_mul + aux_add`` — one formula for all
 metrics, with predicate/probe masks as −inf in ``aux_add``. Three
-measured lowerings (docs/DESIGN.md): an unblocked dot at small Q
-(~96 % of the HBM read ceiling), the fused Pallas kernel at large Q
-(VMEM score tiles, no [N, Q] intermediate), and a VMEM-fusable
-``lax.scan`` as the shape-generic fallback. Scan dtype options: fp32
-(exact), bf16 copy, int8 per-row-quantized copy (selection-only
-precision; opt-in).
+lowerings: an unblocked dot at small Q (bandwidth-bound), the fused
+Pallas kernel at large Q on the GPU (score tiles in registers, no
+[N, Q] intermediate; PERF.md has its times against the XLA forms),
+and a blocked ``lax.scan`` as the shape-generic fallback. Scan dtype
+options: fp32 (exact), bf16 copy, int8 per-row-quantized copy
+(selection-only precision; opt-in).
 
 **Phase 2 (small):** top ``k + pad`` buckets per query via
-hierarchical selection (TPU top-k is sort-like), gather those buckets'
-rows, rescore exactly in fp32 (Precision.HIGHEST), merge.
+hierarchical selection (a flat top-k over every bucket is the costly
+part), gather those buckets' rows, rescore exactly in fp32 (Precision.HIGHEST), merge.
 
-Phase-1 matmul precision: the small-Q oneshot runs Precision.HIGH
-(three-pass bf16 — measured identical selected ids to HIGHEST on
-random data, at lower cost; see bucket_scores_xla). The large-Q
-Pallas kernel runs the TPU DEFAULT one-bf16-pass dot — fp32-true
-passes measured +7.3 ms of 5.3 ms at Q=1024/1M
-(benchmarks/exp_int8_slice.py). So in BOTH regimes phase-1 *selection*
-is bf16-graded even in fp32 mode, protected by the BUCKET_PAD
-candidate margin like the explicit bf16/int8 scan modes (returned
-distances are always fp32-true from the phase-2 rescore; recall@16
-measured 1.0 on chip vs a fp32-true oneshot ranking, and
-tests/test_topk_adversarial.py pins the margin on near-tied corpora
-against a float64 oracle).
+Phase-1 matmul precision (fp32 mode): on the GPU an f32 dot without
+``HIGHEST`` runs in TF32 (10-bit mantissa), and ``HIGH`` is the same
+as ``DEFAULT`` there. TF32 selection measurably breaks the exact
+contract: the near-tie suite (tests/test_topk_adversarial.py) fails
+at Q=256 with a TF32 phase 1 on an H100 and passes with 3xTF32. So the
+fused kernel runs fp32 as 3xTF32 (three TF32 products, about fp32
+accuracy) and the XLA fp32 phase-1 dots run ``HIGHEST``, which costs
+nothing at the small-Q one-shot (bandwidth-bound). The BUCKET_PAD
+candidate margin covers what rounding remains; returned distances are
+always fp32-true from the ``HIGHEST`` phase-2 rescore. The bf16 and
+int8 scan copies are approximate selection by contract.
 
 Exactness: a bucket containing a true top-k element has bucket-max ≥
 that element's score, and at most k buckets hold values ≥ the k-th
@@ -50,32 +49,32 @@ import jax.numpy as jnp
 
 from fenix_tpu.ops.distance import NEG_INF, canonical_metric, normalize
 
-BUCKET = 128  # rows per bucket = one sublane-tile group in the kernel
+BUCKET = 128  # rows per bucket
 # Finer rescore granularity for big query batches: phase-2 gather
-# traffic is kp·bucket·D per query, and at Q=1024 the 32-row bucket
-# measured 16.0 vs 19.4 ms (benchmarks/exp_bucket.py); at Q≤64 the
-# coarse bucket's cheaper phase-1 reduction wins (3.3 vs 4.6 ms).
+# traffic is kp·bucket·D per query. Both sizes and the switch point
+# were tuned on the previous accelerator and are unmeasured on the
+# H100 (ROADMAP S3).
 BUCKET_LARGE_Q = 32
 _BUCKET_SWITCH_Q = 64  # above this query count use BUCKET_LARGE_Q
 BUCKET_PAD = 8  # extra buckets gathered for fp-rounding safety
 
-# Phase-1 strategy (measured on v5e, benchmarks/exp_phase1{,b}.py):
-# a single unblocked dot streams the corpus at ~96% of the achievable
-# HBM read rate, while a lax.scan over blocks stalls between steps
-# (~2.6x slower at Q=8). The dot materializes a [N, Q] f32/i32 tile in
-# HBM, so it only wins while that intermediate is modest; above the cap
-# we fall back to a scan whose per-step [Q, block] tile fits VMEM (XLA
-# then fuses the bucket-max into the matmul — zero intermediate
-# traffic, MXU-bound).
+# Phase-1 strategy: a single unblocked dot streams the corpus in one
+# pass but materializes a [N, Q] score tile in device memory, so it
+# only serves small batches; above ONESHOT_MAX_Q the fused kernel takes
+# over on the GPU, and a blocked scan with a [Q, block] step tile of
+# FUSABLE_TILE_BYTES elsewhere. The three sizes below were tuned on
+# the previous accelerator; the H100 measurement of the kernel against
+# both XLA forms is in PERF.md, and the sizes themselves are unmeasured
+# on the H100 (ROADMAP S2).
 ONESHOT_INTERMEDIATE_CAP = 4 << 30  # bytes of [N, Q] tile tolerated
 ONESHOT_MAX_Q = 32  # above this the [N, Q] tile outweighs the corpus read
-FUSABLE_TILE_BYTES = 8 << 20  # per-step [Q, block] tile target (≤ half VMEM)
+FUSABLE_TILE_BYTES = 8 << 20  # per-step [Q, block] tile target
 _RESCORE_GATHER_CAP = 2 << 30  # phase-2 [Q, kp, 128, D] gather staging cap
 
 
 def _fusable_block(n: int, qt: int, requested: int | None = None) -> int:
-    """Largest power-of-two row block with a VMEM-fusable [qt, block]
-    f32 tile that divides ``n`` (corpora are padded to 16384-row
+    """Largest power-of-two row block whose [qt, block] f32 step tile
+    fits FUSABLE_TILE_BYTES and divides ``n`` (corpora are padded to 16384-row
     multiples upstream, so powers of two up to 16384 always divide)."""
     want = requested or max(FUSABLE_TILE_BYTES // (4 * qt), BUCKET)
     cand = min(want, n)
@@ -87,11 +86,10 @@ def _fusable_block(n: int, qt: int, requested: int | None = None) -> int:
 def pack_result(dist: jax.Array, ids: jax.Array) -> jax.Array:
     """[Q,k] f32 + [Q,k] i32 → [2,Q,k] **int32** (distances bitcast).
 
-    One device→host fetch instead of two — each readback pays a full
-    transport roundtrip. The carrier dtype must be integer: bitcasting
-    small ints into float32 yields denormals, which TPU arithmetic
-    flushes to zero (ids would silently corrupt); float bits ride
-    through an int array unharmed."""
+    One device→host fetch instead of two — each readback pays a host
+    round trip. The carrier dtype must be integer: bitcasting small
+    ints into float32 yields denormals, which flush-to-zero arithmetic
+    would corrupt; float bits ride through an int array unharmed."""
     return jnp.stack([jax.lax.bitcast_convert_type(dist, jnp.int32), ids])
 
 
@@ -118,6 +116,7 @@ def prepare_queries(queries: jax.Array, metric: str) -> jax.Array:
     return queries
 
 
+@functools.partial(jax.jit, static_argnames=("metric",))
 def prepare_aux(
     corpus: jax.Array, mask: jax.Array | None, metric: str
 ) -> tuple[jax.Array, jax.Array]:
@@ -128,6 +127,10 @@ def prepare_aux(
     dot:    s = q·v
     Masked rows get aux_add = −inf. Computed once per (corpus, mask,
     metric) and cached by the engine next to the corpus blocks.
+
+    jit at the def site: run eagerly, ``jnp.square(corpus)`` allocates
+    a second corpus-sized array, so a corpus above half the device
+    memory could never be served; fused, only the [N] outputs are new.
     """
     metric = canonical_metric(metric)
     sq = jnp.sum(jnp.square(corpus), axis=-1)  # [N]
@@ -209,19 +212,15 @@ def bucket_scores_scan_int8(
 ) -> jax.Array:  # [QT, N // bucket]
     """int8 phase 1: s8[q,i] = (q8·v8)·sv_i·aux_mul_i + aux_add_i/sq_q.
 
-    The dot runs int8×int8 on the MXU; scales fold into the f32 FMA
-    epilogue. Per query this is the exact score divided by sq_q — a
-    positive constant — so bucket ranking matches fp32 up to int8
-    rounding of the dot.
+    The dot runs int8×int8; scales fold into the f32 FMA epilogue. Per
+    query this is the exact score divided by sq_q — a positive
+    constant — so bucket ranking matches fp32 up to int8 rounding of
+    the dot.
 
     Accumulation dtype: f32 when d ≤ 1024 (127²·d < 2²⁴ ⇒ every
     partial sum is an exactly-representable integer — bitwise equal to
-    i32), i32 above. The f32 form matters for speed, not just purity:
-    with an i32 dot output XLA will not fuse the convert+FMA+bucket-max
-    epilogue into the matmul and materializes the [QT, N] i32 tile in
-    HBM (+2·4·N·QT bytes ≈ 33 % at QT=8/d=128 — measured 2.95 vs
-    4.4 B rows/s, benchmarks/exp_int8_fuse.py); the f32 form is the
-    same epilogue shape as the fp32 path, which fuses free."""
+    i32), i32 above. The f32 form gives the epilogue the same shape as
+    the fp32 path, which XLA can fuse into the dot's consumer."""
     n, d = corpus8.shape
     qt = q8.shape[0]
     acc_t = jnp.float32 if d <= 1024 else jnp.int32
@@ -230,11 +229,9 @@ def bucket_scores_scan_int8(
         s = s32.astype(jnp.float32) * mb[None, :] + ab[None, :] * inv_sq[:, None]
         return s.reshape(qt, -1, bucket).max(axis=-1)
 
-    # At large Q the oneshot's [N, QT] int32 intermediate materializes
-    # in HBM (the bucket-max no longer fuses into the dot once it has a
-    # real consumer) and costs more than the corpus read; the
-    # VMEM-fusable scan avoids it entirely (21 vs 42 ms end-to-end at
-    # Q=1024/1M, benchmarks/exp_twophase.py run 2 vs 3).
+    # At large Q the oneshot's [N, QT] intermediate costs more than
+    # the corpus read: the blocked scan avoids it (callers on the GPU
+    # take the fused kernel before reaching here).
     if qt <= ONESHOT_MAX_Q and n * qt * 4 <= ONESHOT_INTERMEDIATE_CAP:
         s32 = jax.lax.dot_general(
             q8,
@@ -243,11 +240,6 @@ def bucket_scores_scan_int8(
             preferred_element_type=acc_t,
         )  # [QT, N]
         return fuse(s32, aux_mul_s, aux_add)
-
-    if _bigq_eligible(n, qt, d, 1, int8_mode=True):
-        return bucket_scores_pallas_bigq(
-            q8, corpus8, aux_mul_s, aux_add, inv_sq=inv_sq, bucket=bucket
-        )
 
     block_rows = _fusable_block(n, qt)
     if n % block_rows != 0 or n == block_rows:
@@ -295,6 +287,12 @@ def scores_to_distances(scores: jax.Array, queries: jax.Array, metric: str) -> j
 # -- phase 1: bucket maxima ------------------------------------------------
 
 
+def _xla_precision(acc) -> jax.lax.Precision:
+    """Phase-1 XLA dot precision: true fp32 for fp32 scans (see the
+    module docstring), the native rate for bf16."""
+    return jax.lax.Precision.HIGHEST if acc == jnp.float32 else jax.lax.Precision.DEFAULT
+
+
 def bucket_scores_xla(
     queries_p: jax.Array,  # [QT, D] prepared
     corpus: jax.Array,  # [N, D]
@@ -304,274 +302,188 @@ def bucket_scores_xla(
 ) -> jax.Array:  # [QT, N // bucket]
     """Unblocked phase 1: one dot over the whole corpus.
 
-    The production fast path for small query batches: XLA's dot
-    streams HBM at ~96% of the measured read ceiling, where a blocked
-    ``lax.scan`` stalls between steps (benchmarks/exp_phase1b.py). The
-    [QT, N] score tile it materializes costs QT/64 of the corpus bytes
-    in extra traffic — bucket_scores_scan switches to the blocked form
-    past ONESHOT_INTERMEDIATE_CAP."""
+    The production path for small query batches: one pass over the
+    corpus, where a blocked ``lax.scan`` pays per step. The [QT, N]
+    score tile it materializes costs QT·4/(D·itemsize) of the corpus bytes
+    in extra traffic — bucket_scores_scan switches forms past
+    ONESHOT_MAX_Q and ONESHOT_INTERMEDIATE_CAP."""
     # bf16 corpus → bf16 accumulate + bf16 score tile: halves the
-    # materialized [QT, N] intermediate and doubles MXU rate
-    # (selection-only precision; rescore is fp32 upstream). fp32 corpus
-    # → HIGH (bf16_3x): at Q=8 the MXU runs at 8/128-lane utilization,
-    # so HIGHEST's extra passes stop hiding under the HBM read and the
-    # whole two-phase pipeline loses ~12% at 8M (benchmarks/exp_resid2:
-    # full 7.28 → 6.44 ms, 590 → 667 GB/s). Phase-1 scores were never
-    # the exact form anyway — BUCKET_PAD covers the phase-1-score vs
-    # phase-2-distance rounding gap — and bf16_3x selection picked
-    # identical ids to HIGHEST on 10k random top-16 queries (ids_equal);
-    # the blocked fallback below runs DEFAULT (one bf16 pass), so HIGH
-    # here is the *stricter* of the two fp32 lowerings.
+    # materialized [QT, N] intermediate (selection-only precision;
+    # rescore is fp32 upstream). fp32 corpus → HIGHEST: at Q ≤ 32 the
+    # dot is bandwidth-bound, so true fp32 costs nothing over TF32.
     acc = jnp.bfloat16 if corpus.dtype == jnp.bfloat16 else jnp.float32
     s = jax.lax.dot_general(
         queries_p,
         corpus,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=acc,
-        precision=(
-            jax.lax.Precision.HIGH if acc == jnp.float32 else jax.lax.Precision.DEFAULT
-        ),
+        precision=_xla_precision(acc),
     )
     s = s * aux_mul[None, :].astype(acc) + aux_add[None, :].astype(acc)
     qt, n = s.shape
     return s.reshape(qt, n // bucket, bucket).max(axis=-1).astype(jnp.float32)
 
 
-def _pallas_kernel(q_ref, v_ref, mul_ref, add_ref, out_ref):
-    """One (query-tile, row-block) cell: transposed matmul + per-bucket
-    sublane max over static 128-row slices."""
-    s = jax.lax.dot_general(
-        v_ref[:],
-        q_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # [B, QT] — rows on sublanes
-    s = s * mul_ref[:][:, None] + add_ref[:][:, None]
-
-    b = s.shape[0]
-    for j in range(b // BUCKET):
-        chunk = s[j * BUCKET : (j + 1) * BUCKET]  # [128, QT], tile-aligned
-        out_ref[0, j, :] = jnp.max(chunk, axis=0)
-
-
-def bucket_scores_pallas(
-    queries_p: jax.Array,  # [QT, D]
-    corpus: jax.Array,  # [N, D]
-    aux_mul: jax.Array,
-    aux_add: jax.Array,
-    block_rows: int = 1024,
-) -> jax.Array:  # [QT, N // BUCKET]
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    qt, d = queries_p.shape
-    n = corpus.shape[0]
-    assert n % block_rows == 0 and block_rows % BUCKET == 0
-    nb = n // block_rows
-    buckets_per_block = block_rows // BUCKET
-
-    out = pl.pallas_call(
-        _pallas_kernel,
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec((qt, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows,), lambda i: (i,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows,), lambda i: (i,), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, buckets_per_block, qt), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nb, buckets_per_block, qt), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * qt * d,
-            bytes_accessed=n * d * 4 + n * 8 + qt * d * 4 + (n // BUCKET) * qt * 4,
-            transcendentals=0,
-        ),
-    )(queries_p, corpus, aux_mul, aux_add)
-
-    # (nb, bpb, QT) → (QT, nb·bpb): small array, XLA transpose
-    return out.reshape(nb * buckets_per_block, qt).T
-
-
-# -- large-Q fused kernel ----------------------------------------------------
+# -- large-Q fused kernel (Pallas, Triton route) -----------------------------
 #
-# For big query batches neither XLA form is free: the unblocked dot
-# materializes an [N, QT] tile in HBM (at Q=1024/1M rows that is 4 GB —
-# the measured 5 ms floor of exp_phase1b is exactly that tile's traffic)
-# and the VMEM-fusable scan stalls between steps. A Pallas kernel
-# computes the [BN, BQ] score tile in VMEM and writes only the [BN/128,
-# BQ] bucket maxima — 1/128th of the oneshot's intermediate traffic —
-# leaving the MXU as the only floor.
+# For big query batches neither XLA form is free on the GPU: the one-shot
+# dot writes and re-reads an [N, Q] f32 score tile (4 GB at Q=1024 over
+# 1M rows, against a 512 MB corpus), and the blocked ``lax.scan`` runs
+# N/block sequential steps whose bucket-max cuBLAS cannot fuse into the
+# matmul. This kernel keeps each [BN, BQ] score tile in registers and
+# writes only its [BN/bucket, BQ] bucket maxima.
+#
+# One program per (query tile, row block); nothing carries between
+# programs. The query tile is grid axis 0, which the GPU launches
+# fastest, so the programs that share a corpus block run back to back
+# and re-read it from L2 rather than HBM.
 
-# Grid cell: per-cell overhead dominates this kernel (fp32 and bf16
-# time identically), so bigger tiles win — (2048, 1024) measured
-# 8.79 ms vs (1024, 256)'s 12.3 ms at Q=1024/1M
-# (benchmarks/exp_bigq_tiles.py, exp sweep 2); (4096, 1024) exceeds
-# VMEM and collapses to 16.6 ms, which the _bigq_eligible gate rejects.
-_BIGQ_BN = 2048  # corpus rows per grid cell (BN/bucket ≥ 8: output tile sublanes)
-_BIGQ_BQ = 1024  # preferred queries per grid cell
-
-
-_BIGQ_VMEM_BUDGET = 12 << 20  # of the 16 MB VMEM
-
-# Smallest query tile the kernel offers; batches above ONESHOT_MAX_Q
-# that don't divide it are padded up to it (topk_two_phase mid-Q route).
-_BIGQ_MIN_Q = 256
+# Tiles from a sweep at 1M × 128, Q=1024 on an H100 (PERF.md): 8 warps
+# beat 4 by 1.6× in fp32; 64-row blocks and a fourth stage did not help.
+_TRITON_BN = 128  # corpus rows per program; a multiple of both buckets
+_TRITON_BK = {4: 64, 2: 64, 1: 128}  # K-chunk width by itemsize
+_TRITON_WARPS = 8
+_TRITON_STAGES = 3
+# 3xTF32: plain TF32 fails the near-tie suite on the card (module docstring)
+_FP32_DOT = jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3
 
 
-def _bigq_vmem(bn: int, bq: int, d: int, itemsize: int, int8_mode: bool) -> int:
-    # int8 converts i32→f32 per bucket slice inside the reduction loop,
-    # so both modes hold exactly ONE [bn, bq] 4-byte score tile.
-    del int8_mode
-    return (
-        2 * bn * d * itemsize  # corpus block, double-buffered
-        + 2 * bq * d * itemsize  # query block
-        + bn * bq * 4  # score tile
-        + 3 * bn * 4  # aux blocks
-    )
+def _triton_tiles(qt: int, d: int, itemsize: int) -> tuple[int, int]:
+    """(query tile, K-chunk) for a batch of ``qt`` queries of width ``d``."""
+    bq = 128 if qt > 64 else 64
+    bk = max(16, min(_TRITON_BK[itemsize], _next_pow2(d)))
+    return bq, bk
 
 
-def _bigq_tiles(qt: int, d: int, itemsize: int, int8_mode: bool) -> tuple[int, int] | None:
-    """Largest (row-block, query-tile) pair that divides the batch AND
-    fits VMEM, or None. Larger tiles cut per-cell overhead — the
-    kernel's measured floor — so prefer wide, then degrade: high-dim
-    corpora step the row block down before losing the kernel."""
-    for bn in (_BIGQ_BN, 1024):
-        for bq in (_BIGQ_BQ, 512, 256):
-            if qt % bq == 0 and _bigq_vmem(bn, bq, d, itemsize, int8_mode) <= _BIGQ_VMEM_BUDGET:
-                return bn, bq
-    return None
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
 
 
-def _make_bigq_kernel(bn: int, bucket: int, int8_mode: bool):
-    """Kernel factory: [BN, BQ] scores in VMEM, per-``bucket``-row
-    maxima out. Rows ride sublanes; queries ride lanes (wide lane
-    tiles, no layout waste — the round-1 kernel's QT=8 lane dim wasted
-    15/16 of every vector op)."""
+def _make_triton_kernel(d: int, bk: int, bucket: int, int8_mode: bool, precision):
+    """Kernel factory: [BN, BQ] = corpus block · query tileᵀ, accumulated
+    over D in ``bk`` chunks (a pipelined loop over the full chunks, then
+    one masked tail chunk when ``bk`` does not divide ``d``), then the
+    scale/shift and the per-``bucket`` max in the epilogue."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
-    def kernel_f32(q_ref, v_ref, mul_ref, add_ref, out_ref):
-        s = jax.lax.dot_general(
-            v_ref[:],
-            q_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [BN, BQ]
-        s = s * mul_ref[:][:, None] + add_ref[:][:, None]
-        for j in range(bn // bucket):
-            out_ref[j, :] = jnp.max(s[j * bucket : (j + 1) * bucket], axis=0)
+    n_full, tail = divmod(d, bk)
 
-    def kernel_int8(q_ref, v_ref, mul_ref, add_ref, inv_sq_ref, out_ref):
-        s32 = jax.lax.dot_general(
-            v_ref[:],
-            q_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )  # [BN, BQ] — the only full score tile in VMEM
-        # inv_sq rides whole as a [nj, BQ] block (tiny; 1-D or 1-row
-        # blocks trip Mosaic/XLA tiling checks) — pick this tile's row.
-        from jax.experimental import pallas as pl
+    def kernel(q_ref, v_ref, mul_ref, add_ref, *rest):
+        inv_sq_ref, out_ref = rest if int8_mode else (None, rest[0])
+        bq, bn = q_ref.shape[0], v_ref.shape[0]
+        acc_t = jnp.int32 if int8_mode else jnp.float32
 
-        inv_sq_row = inv_sq_ref[pl.program_id(1), :]
-        # Convert/scale per bucket slice so the f32 tile never
-        # materializes alongside the i32 dot — halves the kernel's VMEM
-        # score footprint, which is what lets int8 keep the wide
-        # (2048, 1024) tiles instead of falling to (2048, 512) and
-        # paying 2× the per-grid-cell overhead (the kernel's floor).
-        for j in range(bn // bucket):
-            sl = slice(j * bucket, (j + 1) * bucket)
-            s = (
-                s32[sl].astype(jnp.float32) * mul_ref[sl][:, None]
-                + add_ref[sl][:, None] * inv_sq_row[None, :]
-            )
-            out_ref[j, :] = jnp.max(s, axis=0)
+        def chunk(v, q):
+            return pl.dot(v, q, trans_b=True, precision=precision).astype(acc_t)
 
-    return kernel_int8 if int8_mode else kernel_f32
+        def body(kk, acc):
+            cols = pl.ds(pl.multiple_of(kk * bk, bk), bk)
+            return acc + chunk(v_ref[:, cols], q_ref[:, cols])
+
+        acc = jax.lax.fori_loop(0, n_full, body, jnp.zeros((bn, bq), acc_t))
+        if tail:
+            cols = pl.ds(n_full * bk, bk)
+            ok = (jnp.arange(bk) < tail)[None, :]
+            v = plgpu.load(v_ref.at[:, cols], mask=ok, other=0)
+            q = plgpu.load(q_ref.at[:, cols], mask=ok, other=0)
+            acc = acc + chunk(v, q)
+
+        add = add_ref[...][:, None]
+        if int8_mode:
+            add = add * inv_sq_ref[...][None, :]
+        s = acc.astype(jnp.float32) * mul_ref[...][:, None] + add  # [BN, BQ]
+        out_ref[...] = s.reshape(bn // bucket, bucket, bq).max(axis=1)
+
+    return kernel
 
 
-def bucket_scores_pallas_bigq(
-    queries_p: jax.Array,  # [QT, D] f32/bf16 — or int8 with scales below
-    corpus: jax.Array,  # [N, D] same dtype family
-    aux_mul: jax.Array,  # [N] f32
+def bucket_scores_triton(
+    queries_p: jax.Array,  # [QT, D] f32/bf16 — or int8 with ``inv_sq``
+    corpus: jax.Array,  # [N, D] same dtype
+    aux_mul: jax.Array,  # [N] f32 (int8: aux_mul · sv)
     aux_add: jax.Array,  # [N] f32
     inv_sq: jax.Array | None = None,  # [QT] f32 — int8 path only
     interpret: bool = False,
     bucket: int = BUCKET,
-    transpose: bool = True,
-) -> jax.Array:  # [QT, N // bucket] (or the kernel-natural [N // bucket, QT]
-    # when ``transpose=False`` — feed that layout to topk_buckets_nbq)
-    """Fused matmul + bucket-max for query batches that tile per
-    ``_bigq_tiles`` (any Q divisible by 256 with a VMEM-fitting tile —
-    wider tiles preferred, per-cell overhead is the measured floor).
+) -> jax.Array:  # [N // bucket, QT] — feed this layout to topk_buckets_nbq
+    """Fused matmul + bucket-max phase 1 (Pallas, ``backend="triton"``).
 
-    Grid is (N blocks, Q tiles) with Q innermost, so each corpus block
-    is DMA'd once and revisited for every query tile; output traffic is
-    corpus_bytes·(128/bucket)/128 per query tile. QT and N must be
-    multiples of the tile sizes (the executor's canonical shapes
-    guarantee this). Beats the fusable scan by ~2.3 ms at Q=1024/1M
-    fp32 (benchmarks/exp_pallas_bigq.py; Mosaic compile ~3 s here)."""
+    Dot types: fp32 runs as TF32 (selection only, see the module
+    docstring), bf16 as bf16, int8 as int8×int8 → int32 with the row and
+    query scales applied in the epilogue. Any batch size: the query
+    axis is zero-padded up to the tile and sliced off again. ``N`` must
+    be a multiple of ``_TRITON_BN`` (see :func:`_bigq_eligible`)."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     qt, d = queries_p.shape
     n = corpus.shape[0]
     int8_mode = inv_sq is not None
-    tiles = _bigq_tiles(qt, d, corpus.dtype.itemsize, int8_mode)
-    assert tiles is not None, (qt, d)
-    bn, bq = tiles
-    assert qt % bq == 0 and n % bn == 0, (qt, n)
-    ni, nj = n // bn, qt // bq
-    bpb = bn // bucket
-
-    kernel = _make_bigq_kernel(bn, bucket, int8_mode)
+    bn = _TRITON_BN
+    assert n % bn == 0 and bn % bucket == 0, (n, bucket)
+    bq, bk = _triton_tiles(qt, d, corpus.dtype.itemsize)
+    qp = -(-qt // bq) * bq
+    if qp != qt:
+        queries_p = jnp.concatenate(
+            [queries_p, jnp.zeros((qp - qt, d), queries_p.dtype)]
+        )
+        if int8_mode:
+            inv_sq = jnp.concatenate([inv_sq, jnp.ones((qp - qt,), inv_sq.dtype)])
+    # interpret mode runs the body through XLA:CPU, which has no TF32
+    precision = (
+        None
+        if int8_mode or corpus.dtype != jnp.float32
+        else (jax.lax.Precision.HIGHEST if interpret else _FP32_DOT)
+    )
+    kernel = _make_triton_kernel(d, bk, bucket, int8_mode, precision)
+    dp = _next_pow2(d)  # block width; loads never reach past ``d``
     in_specs = [
-        pl.BlockSpec((bq, d), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((bn, d), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((bn,), lambda i, j: (i,), memory_space=pltpu.VMEM),
-        pl.BlockSpec((bn,), lambda i, j: (i,), memory_space=pltpu.VMEM),
+        pl.BlockSpec((bq, dp), lambda j, i: (j, 0)),
+        pl.BlockSpec((bn, dp), lambda j, i: (i, 0)),
+        pl.BlockSpec((bn,), lambda j, i: (i,)),
+        pl.BlockSpec((bn,), lambda j, i: (i,)),
     ]
     args = [queries_p, corpus, aux_mul, aux_add]
     if int8_mode:
-        in_specs.append(
-            pl.BlockSpec((nj, bq), lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-        )
-        args.append(inv_sq.reshape(nj, bq))
+        in_specs.append(pl.BlockSpec((bq,), lambda j, i: (j,)))
+        args.append(inv_sq)
 
     itemsize = corpus.dtype.itemsize
     out = pl.pallas_call(
         kernel,
-        grid=(ni, nj),
+        grid=(qp // bq, n // bn),
         in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (bpb, bq), lambda i, j: (i, j), memory_space=pltpu.VMEM
+        out_specs=pl.BlockSpec((bn // bucket, bq), lambda j, i: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((n // bucket, qp), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_TRITON_WARPS, num_stages=_TRITON_STAGES
         ),
-        out_shape=jax.ShapeDtypeStruct((n // bucket, qt), jnp.float32),
         cost_estimate=pl.CostEstimate(
-            # corpus blocks load once (v's index map ignores j); query
-            # tiles reload per row block (tiny).
-            flops=2 * n * qt * d,
-            bytes_accessed=n * d * itemsize + n * 8 + qt * d * itemsize * ni
-            + (n // bucket) * qt * 4,
+            flops=2 * n * qp * d,
+            bytes_accessed=n * d * itemsize + n * 8 + qp * d * itemsize
+            + (n // bucket) * qp * 4,
             transcendentals=0,
         ),
         interpret=interpret,
+        name="fenix_bucket_max",
     )(*args)
-    return out.T if transpose else out  # [QT, N/bucket] | [N/bucket, QT]
+    return out[:, :qt]
 
 
-def _bigq_eligible(n: int, qt: int, d: int, itemsize: int, int8_mode: bool = False) -> bool:
-    """Use the fused Pallas phase 1 when shapes tile, the per-cell VMEM
-    footprint fits (double-buffered corpus/query blocks + the score
-    tile(s) within ~12 MB of the 16 MB VMEM), and we are on a real TPU
-    backend (Mosaic has no CPU lowering; tests run the kernel in
-    interpret mode explicitly)."""
-    tiles = _bigq_tiles(qt, d, itemsize, int8_mode)
-    if tiles is None or qt % tiles[1] != 0 or n % tiles[0] != 0:
+def _bigq_eligible(n: int) -> bool:
+    """Whether phase 1 for a batch above ONESHOT_MAX_Q takes the fused
+    kernel: yes on the GPU when the corpus tiles into row blocks; never
+    on the CPU, where XLA serves every batch (tests run the kernel in
+    interpret mode explicitly). Any other platform is an error — this
+    engine has no kernel for it and will not guess."""
+    platform = jax.default_backend()
+    if platform == "cpu":
         return False
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
+    if platform != "gpu":
+        raise NotImplementedError(f"no phase-1 route for platform {platform!r}")
+    return n % _TRITON_BN == 0
 
 
 def bucket_scores_scan(
@@ -581,12 +493,10 @@ def bucket_scores_scan(
     aux_add: jax.Array,
     bucket: int = BUCKET,
 ) -> jax.Array:  # [QT, N // bucket]
-    """Phase 1: one unblocked dot when the [N, QT] intermediate is
-    affordable (streams the corpus at ~the HBM read ceiling — measured
-    470 GB/s vs 184 GB/s for the blocked scan, which stalls between
-    steps; benchmarks/exp_phase1b.py), else a ``lax.scan`` over
-    VMEM-fusable blocks (XLA fuses matmul → scale/shift → bucket-max
-    per step — zero intermediate traffic, MXU-bound).
+    """XLA phase 1: one unblocked dot when the [N, QT] intermediate is
+    affordable, else a ``lax.scan`` over row blocks (matmul →
+    scale/shift → bucket-max per step). Callers on the GPU take the
+    fused kernel for large batches before reaching here.
 
     No per-block ``top_k``, no cross-block carry: selection happens
     once at the end (topk_two_phase).
@@ -595,18 +505,13 @@ def bucket_scores_scan(
     qt = queries_p.shape[0]
 
     # bf16 corpus → bf16 score tiles: halves the materialized s-tile
-    # traffic and doubles MXU rate; selection-only precision (the final
-    # top_k over bucket maxima happens in f32 upstream).
+    # traffic; selection-only precision (the final top_k over bucket
+    # maxima happens in f32 upstream).
     acc_dtype = jnp.bfloat16 if corpus.dtype == jnp.bfloat16 else jnp.float32
     acc_bytes = 2 if acc_dtype == jnp.bfloat16 else 4
 
     if qt <= ONESHOT_MAX_Q and n * qt * acc_bytes <= ONESHOT_INTERMEDIATE_CAP:
         return bucket_scores_xla(queries_p, corpus, aux_mul, aux_add, bucket)
-
-    if _bigq_eligible(n, qt, d, corpus.dtype.itemsize):
-        return bucket_scores_pallas_bigq(
-            queries_p, corpus, aux_mul, aux_add, bucket=bucket
-        )
 
     block_rows = _fusable_block(n, qt)
     if n % block_rows != 0 or n == block_rows:
@@ -626,6 +531,7 @@ def bucket_scores_scan(
             vb,
             dimension_numbers=(((1,), (1,)), ((), ())),
             preferred_element_type=acc_dtype,
+            precision=_xla_precision(acc_dtype),
         )
         s = s * mb[None, :].astype(acc_dtype) + ab[None, :].astype(acc_dtype)
         out = s.reshape(qt, block_rows // bucket, bucket).max(axis=-1)
@@ -648,10 +554,10 @@ def bucket_scores_scan_probed(
     inv_sq: jax.Array | None = None,  # [QT] — int8 per-query 1/scale
 ) -> jax.Array:  # [QT, N // bucket]
     """Phase 1 with per-query IVF probe masks applied inside the scan
-    (reference index.py:113-126 semantics, per query). Blocks are
-    VMEM-fusable like bucket_scores_scan; the per-query probe mask
-    rules out the unblocked-dot fast path (the [QT, block, P] compare
-    must stay a fused VMEM tile).
+    (reference index.py:113-126 semantics, per query). Blocked like
+    bucket_scores_scan; the per-query probe mask rules out the
+    unblocked-dot fast path (the [QT, block, P] compare must stay one
+    step-sized tile).
 
     Scan-precision variants mirror the unprobed twins: a bf16 ``corpus``
     halves traffic with a bf16 accumulate; an int8 ``corpus`` (pass
@@ -683,6 +589,7 @@ def bucket_scores_scan_probed(
             vb,
             dimension_numbers=(((1,), (1,)), ((), ())),
             preferred_element_type=acc,
+            precision=_xla_precision(acc),
         )
         if int8_mode:
             s = s.astype(jnp.float32) * mb[None, :] + ab[None, :] * inv_sq[:, None]
@@ -704,10 +611,10 @@ _SEL_GROUP = 128
 def topk_buckets(bucket_max: jax.Array, kp: int) -> jax.Array:
     """Exact top-``kp`` bucket indices per query, hierarchical.
 
-    ``lax.top_k`` over the full [Q, N/128] bucket-max row is the single
-    most expensive op at large Q (measured 25.6 ms of a 39 ms query at
-    Q=1024, N=1M — benchmarks/exp_phase2.py): TPU top-k is sort-based.
-    Instead: group-max over 128-bucket groups → top-kp *groups* (at most
+    ``lax.top_k`` over the full [Q, N/128] bucket-max row was the
+    single most expensive op at large Q on the previous accelerator,
+    whose top-k is sort-based (unmeasured on the H100). Instead:
+    group-max over 128-bucket groups → top-kp *groups* (at most
     kp groups can hold a value ≥ the kp-th best, same coverage argument
     as the bucket trick itself) → gather those groups' bucket maxima →
     top-kp over kp·128 candidates. Stable order is preserved: groups
@@ -746,19 +653,27 @@ def topk_buckets(bucket_max: jax.Array, kp: int) -> jax.Array:
     return jnp.minimum(bidx, nb - 1)
 
 
+def _top_rows(x: jax.Array, k: int) -> jax.Array:
+    """Indices [Q, k] of the k largest rows of [R, Q] ``x`` per column,
+    ties to the smaller index (``lax.top_k``'s rule), by a stable sort
+    along axis 0. On an H100, ``lax.top_k`` over the transpose of the
+    fused kernel's output returned wrong elements at k ≤ 16 (XLA's
+    dedicated small-k kernel); sorting along the stored axis avoids
+    both the transpose and that kernel."""
+    return jnp.argsort(-x, axis=0, stable=True)[:k].T
+
+
 def topk_buckets_nbq(bucket_max_nbq: jax.Array, kp: int) -> jax.Array:
     """topk_buckets on the kernel's NATURAL [nb, Q] layout.
 
-    The Pallas phase-1 kernel emits bucket maxima as [nb, Q]; selecting
+    The fused phase-1 kernel emits bucket maxima as [nb, Q]; selecting
     straight off that layout skips the 128 MB [nb, Q] → [Q, nb]
-    transpose the [Q, nb] API forces XLA to materialize/fuse — measured
-    3.67 vs 4.39 ms at Q=1024, N=1M (benchmarks/exp_decomp.py),
-    identical selected sets. Same coverage + stable-tie argument as
+    transpose (at Q=1024, N=1M) that the [Q, nb] API would force XLA to
+    materialize, with identical selected sets. Same coverage + stable-tie argument as
     topk_buckets (groups gathered ascending; ties → smallest bucket)."""
     nb, q = bucket_max_nbq.shape
     if kp > _SEL_GROUP or nb < 8 * _SEL_GROUP or nb <= 2 * kp * _SEL_GROUP:
-        _, bidx = jax.lax.top_k(bucket_max_nbq.T, kp)
-        return bidx
+        return _top_rows(bucket_max_nbq, kp)
 
     pad = (-nb) % _SEL_GROUP
     if pad:
@@ -770,7 +685,7 @@ def topk_buckets_nbq(bucket_max_nbq: jax.Array, kp: int) -> jax.Array:
     gmax = grouped.max(axis=1)  # [g, Q]
 
     kg = min(kp, g)
-    _, gidx = jax.lax.top_k(gmax.T, kg)  # [Q, kg], stable
+    gidx = _top_rows(gmax, kg)  # [Q, kg], stable
     gidx = jnp.sort(gidx, axis=-1)  # ascending → candidate order = id order
 
     cand = jnp.take_along_axis(
@@ -870,9 +785,8 @@ def topk_ivf_clustered(
     them (host-computed from the cell offset table). The kernel gathers
     ONLY those buckets and rescores exactly — cost ∝ probed rows, not
     corpus rows. The masked-scan path (topk_two_phase_probed) costs a
-    full corpus pass regardless of selectivity (measured 52 ms vs 3 ms
-    brute force at 1M rows, P=64/4096 cells — the clustered gather is
-    the actual IVF speedup). Boundary buckets contain neighbor cells'
+    full corpus pass regardless of selectivity — the clustered gather
+    is the actual IVF speedup. Boundary buckets contain neighbor cells'
     rows; the per-row probe-membership compare masks them (reference
     index.py:113-126 semantics). Returned ids are ORIGINAL row ids,
     ordered by (distance asc, id asc) — ties resolve by smallest id via
@@ -1017,8 +931,8 @@ def topk_two_phase_probed(
             qp_c,
             cand_v,
             preferred_element_type=jnp.float32,
-            # fp32-true rescore: TPU DEFAULT matmul precision rounds f32
-            # inputs to bf16; flops here are negligible vs the gather
+            # fp32-true rescore: the default precision runs f32 in TF32
+            # on the GPU; flops here are negligible vs the gather
             precision=jax.lax.Precision.HIGHEST,
         )
         s = s * mul_b[bidx_c] + add_b[bidx_c]
@@ -1084,44 +998,13 @@ def topk_two_phase(
     ``corpus_scan`` optionally substitutes a lower-precision (bf16)
     copy for phase 1 — half the HBM scan traffic. ``corpus_scan_int8``
     is a ``(v8, sv)`` pair from :func:`quantize_corpus_int8` — quarter
-    traffic, int8 MXU dot. Phase 2 always rescores candidates against
+    traffic, int8 dot. Phase 2 always rescores candidates against
     the fp32 ``corpus``, so returned distances stay exact fp32; only
     bucket *selection* becomes approximate (recall ≈ 1 with the
     BUCKET_PAD margin; opt-in via the executor's ``precision`` knob)."""
     metric = canonical_metric(metric)
     n, d = corpus.shape
     q = queries.shape[0]
-
-    # Mid-size batches (32 < Q, Q not a multiple of the 256-wide minimum
-    # Pallas query tile) would fall through to the blocked fusable scan —
-    # the slowest phase-1 lowering. Padding the batch up to the tile and
-    # taking the fused kernel wins outright: 2.91 vs 4.06 ms at Q=64,
-    # 2.95 vs 3.94 at Q=128 (1M×128, benchmarks/exp_midq.py). Padding
-    # queries are all-zero rows; every step is row-independent per
-    # query, so real queries' results are unchanged and the pad rows
-    # are sliced off.
-    if q > ONESHOT_MAX_Q and q % _BIGQ_MIN_Q != 0:
-        scan_itemsize = (
-            1
-            if corpus_scan_int8 is not None
-            else (corpus_scan if corpus_scan is not None else corpus).dtype.itemsize
-        )
-        q_up = -(-q // _BIGQ_MIN_Q) * _BIGQ_MIN_Q
-        if _bigq_eligible(n, q_up, d, scan_itemsize, corpus_scan_int8 is not None):
-            queries_up = jnp.concatenate(
-                [queries, jnp.zeros((q_up - q, d), queries.dtype)]
-            )
-            dist, ids = topk_two_phase(
-                corpus,
-                queries_up,
-                aux_mul,
-                aux_add,
-                k=k,
-                metric=metric,
-                corpus_scan=corpus_scan,
-                corpus_scan_int8=corpus_scan_int8,
-            )
-            return dist[:q], ids[:q]
 
     bucket = BUCKET if q <= _BUCKET_SWITCH_Q else BUCKET_LARGE_Q
     while n % bucket != 0:  # tiny shards (sharded search) may not tile
@@ -1138,10 +1021,10 @@ def topk_two_phase(
         v8, sv = corpus_scan_int8
         q8, inv_sq = quantize_queries_int8(queries_p)
         ams = aux_mul * sv
-        if q > ONESHOT_MAX_Q and _bigq_eligible(n, q, d, 1, int8_mode=True):
+        if q > ONESHOT_MAX_Q and _bigq_eligible(n):
             # kernel-natural [nb, Q] maxima + transpose-free selection
-            bm_nbq = bucket_scores_pallas_bigq(
-                q8, v8, ams, aux_add, inv_sq=inv_sq, bucket=bucket, transpose=False
+            bm_nbq = bucket_scores_triton(
+                q8, v8, ams, aux_add, inv_sq=inv_sq, bucket=bucket
             )
             bidx = topk_buckets_nbq(bm_nbq, kp)
         else:
@@ -1152,9 +1035,9 @@ def topk_two_phase(
         scan_q = queries_p if corpus_scan is None else queries_p.astype(corpus_scan.dtype)
         acc_bytes = 2 if scan_c.dtype == jnp.bfloat16 else 4
         oneshot = q <= ONESHOT_MAX_Q and n * q * acc_bytes <= ONESHOT_INTERMEDIATE_CAP
-        if not oneshot and _bigq_eligible(n, q, d, scan_c.dtype.itemsize):
-            bm_nbq = bucket_scores_pallas_bigq(
-                scan_q, scan_c, aux_mul, aux_add, bucket=bucket, transpose=False
+        if not oneshot and _bigq_eligible(n):
+            bm_nbq = bucket_scores_triton(
+                scan_q, scan_c, aux_mul, aux_add, bucket=bucket
             )
             bidx = topk_buckets_nbq(bm_nbq, kp)
         else:
@@ -1171,8 +1054,8 @@ def topk_two_phase(
     lane_iota = jnp.arange(bucket, dtype=jnp.int32)[None, None, :]
 
     def rescore_chunk(args):
-        """Gather + exact rescore for one query chunk (bounds VMEM/HBM
-        footprint of the [chunk, kp, bucket, D] candidate gather)."""
+        """Gather + exact rescore for one query chunk (bounds the device
+        memory footprint of the [chunk, kp, bucket, D] candidate gather)."""
         qp_c, bidx_c = args  # [C, D], [C, kp]
         cand_v = rows[bidx_c]  # [C, kp, bucket, D]
         s = jnp.einsum(
@@ -1180,8 +1063,8 @@ def topk_two_phase(
             qp_c,
             cand_v,
             preferred_element_type=jnp.float32,
-            # fp32-true rescore: TPU DEFAULT matmul precision rounds f32
-            # inputs to bf16; flops here are negligible vs the gather
+            # fp32-true rescore: the default precision runs f32 in TF32
+            # on the GPU; flops here are negligible vs the gather
             precision=jax.lax.Precision.HIGHEST,
         )
         s = s * mul_b[bidx_c] + add_b[bidx_c]
@@ -1191,10 +1074,8 @@ def topk_two_phase(
         top_s, pos = jax.lax.top_k(s, kk)
         return top_s, jnp.take_along_axis(ids, pos, axis=1)
 
-    # Chunk only when the [Q, kp, bucket, D] gather would exceed the HBM
-    # staging budget — lax.map serializes its steps, and 16 small
-    # chunked top_k calls cost ~25 ms at Q=1024 where the unchunked
-    # rescore runs in ~10 ms (benchmarks/exp_phase2.py p2_full_nomap).
+    # Chunk only when the [Q, kp, bucket, D] gather would exceed the
+    # staging budget — lax.map serializes its steps.
     per_query = kp * bucket * d * 4
     chunk = min(q, max(64, _RESCORE_GATHER_CAP // per_query))
     if q % chunk != 0:
@@ -1241,8 +1122,8 @@ def topk_window_int8(
     the EXACT per-row aux from the fp32 host corpus) → top-``W`` global
     row ids per query.
 
-    This is the engine form of the composition measured at spec in
-    benchmarks/config2_fullscale.py (VERDICT r3 #1): the fp32 corpus
+    This is the engine form of the composition in
+    benchmarks/config2_fullscale.py: the fp32 corpus
     never touches the device — the host gathers the returned window rows
     and rescores exactly (engine/residency.py). The narrowing dot's only
     error is the row-side quantization residual (query side is fp32),
@@ -1268,9 +1149,9 @@ def topk_window_int8(
     kp = min(max(k, -(-w // bucket)) + 2 * BUCKET_PAD, n_buckets)
     ww = min(w, kp * bucket)
 
-    if q > ONESHOT_MAX_Q and _bigq_eligible(n, q, d, 1, int8_mode=True):
-        bm_nbq = bucket_scores_pallas_bigq(
-            q8, v8, ams, aux_add, inv_sq=inv_sq, bucket=bucket, transpose=False
+    if q > ONESHOT_MAX_Q and _bigq_eligible(n):
+        bm_nbq = bucket_scores_triton(
+            q8, v8, ams, aux_add, inv_sq=inv_sq, bucket=bucket
         )
         bidx = topk_buckets_nbq(bm_nbq, kp)
     else:
@@ -1287,7 +1168,10 @@ def topk_window_int8(
         qp_c, bidx_c = args  # [C, D], [C, kp]
         cand8 = rows8[bidx_c]  # [C, kp, bucket, D] int8
         # narrowing score: fp32 query × dequantized row + exact aux —
-        # the row scale folds into mul_b, the exact −‖v‖² rides add_b
+        # the row scale folds into mul_b, the exact −‖v‖² rides add_b.
+        # Default precision: TF32 on the GPU. The window is W ≫ k and
+        # the host rescores it exactly, so selection error here only
+        # needs to stay inside the window.
         s = jnp.einsum(
             "qd,qkbd->qkb",
             qp_c,

@@ -1,11 +1,12 @@
 """Multi-host bootstrap: jax.distributed + sharded corpus manifests.
 
 SURVEY.md §2.4: the reference is strictly single-process; scaling here
-follows the north star — one engine process per TPU host,
-``jax.distributed.initialize`` for DCN rendezvous, corpus rows
-hash-partitioned across hosts (fenix_tpu.native.hash_partition on
+follows the north star — one engine process per accelerator host,
+``jax.distributed.initialize`` for the cross-host rendezvous, corpus
+rows hash-partitioned across hosts (fenix_tpu.native.hash_partition on
 ingest), each host feeding its local shard into the global mesh, with
-the candidate-only top-k merge (parallel.search) riding ICI.
+the candidate-only top-k merge (parallel.search) riding the
+interconnect.
 
 Single-host multi-chip needs none of this — ``mesh.make_mesh()`` over
 local devices is enough. This module is the pod-slice entry point.

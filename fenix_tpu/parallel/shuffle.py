@@ -3,8 +3,8 @@
 North-star component (BASELINE.json config 4: "hash-partitioned tables,
 skew-handled shuffle"). Each device hash-partitions its local rows by
 key, packs them into fixed-capacity per-destination buffers (static
-shapes — TPU cannot ragged-send), and exchanges them with a single
-``all_to_all`` over ICI. Raw row payloads move exactly once.
+shapes — XLA collectives need static buffers), and exchanges them with
+a single ``all_to_all``. Raw row payloads move exactly once.
 
 Skew handling is sampled (SURVEY.md §5): ``estimate_capacity`` bounds
 the per-destination buffer from a key sample instead of the worst case,

@@ -6,9 +6,9 @@ storage). torch's quantized-tensor machinery is replaced with explicit
 numpy/jax affine math; dynamic quantization mirrors torch's
 ``quantize_per_tensor_dynamic(reduce_range=True)`` (quint8 range 0-127).
 
-On TPU the quantized path halves HBM traffic for bandwidth-bound scans:
-int8 corpus blocks feed the MXU directly with the scale folded into the
-query (see ops.distance bf16/int8 roadmap).
+The quantized path cuts device-memory traffic for bandwidth-bound
+scans: int8 corpus blocks feed the matmul directly with the scale
+folded into the query (see ops.distance bf16/int8 roadmap).
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ class QUInt8TensorArray(pa.ExtensionArray):
         return self.to_numpy().dequantize()
 
     def to_jax_quantized(self):
-        """(uint8 jax array, scale, shift) — feed int8 MXU paths."""
+        """(uint8 jax array, scale, shift) — feed int8 matmul paths."""
         import jax.numpy as jnp
 
         return (

@@ -65,3 +65,30 @@ def test_row_score_matches_numpy(rng):
         want = (rows[pos].astype(np.float32) @ q) * mul[pos] + add[pos]
         got = native.row_score(rows, pos, q, mul, add)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_library_builds_at_first_use(tmp_path, monkeypatch):
+    """No build output is committed: the first use compiles the source
+    into the build directory under a source-keyed name and loads it."""
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    path = native.lib_path()
+    assert path.startswith(str(tmp_path)) and not (tmp_path / "build").exists()
+
+    lib = native._load()
+    assert lib is not None and lib.fenix_version() > 0
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        path.rsplit("/", 1)[1]
+    ]  # the temporary file was renamed, not left behind
+    assert native.build() == path  # built once; the second call only finds it
+
+
+def test_no_compiler_falls_back_to_numpy(tmp_path, monkeypatch, rng):
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    assert native._load() is None and not native.available()
+    x = rng.standard_normal((50, 8)).astype(np.float32)
+    np.testing.assert_array_equal(native.gather_rows(x, np.arange(10)), x[:10])

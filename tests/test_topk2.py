@@ -1,4 +1,5 @@
-"""Two-phase exact top-k vs oracles; Pallas kernel in interpret mode."""
+"""Two-phase exact top-k vs oracles; the fused Pallas (Triton-route)
+phase-1 kernel in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -80,18 +81,19 @@ def test_two_phase_fewer_valid_than_k(rng):
     assert np.isinf(np.asarray(dist)[ids < 0]).all()
 
 
-def test_pallas_kernel_interpret_matches_xla(rng):
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, d, qt = 4096, 64, 16
+def test_blocked_scan_matches_oneshot_xla(rng, monkeypatch):
+    """The blocked ``lax.scan`` phase 1 (XLA's form past the one-shot
+    cap) must give the one-shot dot's bucket maxima."""
+    n, d, qt = 4096, 64, 48
     corpus = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
     queries = jnp.asarray(rng.standard_normal((qt, d)).astype(np.float32))
     aux_mul, aux_add = topk2.prepare_aux(corpus, None, "cosine")
     qp = topk2.prepare_queries(queries, "cosine")
 
     want = np.asarray(topk2.bucket_scores_xla(qp, corpus, aux_mul, aux_add))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(topk2.bucket_scores_pallas(qp, corpus, aux_mul, aux_add, 1024))
+    monkeypatch.setattr(topk2, "FUSABLE_TILE_BYTES", 4 * qt * 512)  # 8 steps
+    assert topk2._fusable_block(n, qt) == 512
+    got = np.asarray(topk2.bucket_scores_scan(qp, corpus, aux_mul, aux_add))
 
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
@@ -209,9 +211,9 @@ def test_bigq_pallas_matches_xla_interpret(rng):
 
     want = np.asarray(topk2.bucket_scores_xla(
         jnp.asarray(queries), jnp.asarray(corpus), aux_mul, aux_add))
-    got = np.asarray(topk2.bucket_scores_pallas_bigq(
+    got = np.asarray(topk2.bucket_scores_triton(
         jnp.asarray(queries), jnp.asarray(corpus), aux_mul, aux_add, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.T, want, rtol=1e-5, atol=1e-5)
 
 
 def test_bigq_pallas_int8_matches_reference_math(rng):
@@ -225,28 +227,25 @@ def test_bigq_pallas_int8_matches_reference_math(rng):
     q8, inv_sq = topk2.quantize_queries_int8(qp)
 
     want = np.asarray(topk2.bucket_scores_scan_int8(q8, v8, aux_mul * sv, aux_add, inv_sq))
-    got = np.asarray(topk2.bucket_scores_pallas_bigq(
+    got = np.asarray(topk2.bucket_scores_triton(
         q8, v8, aux_mul * sv, aux_add, inv_sq=inv_sq, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.T, want, rtol=1e-5, atol=1e-5)
 
 
 def test_bigq_pallas_nbq_selection_path_interpret(rng):
-    """The production large-Q route on TPU: kernel-natural [nb, Q]
-    output (transpose=False) fed to topk_buckets_nbq must select the
-    same buckets as the [Q, nb] API + topk_buckets."""
+    """The production large-Q route on the GPU: the kernel's [nb, Q]
+    output fed to topk_buckets_nbq must select the same buckets as the
+    [Q, nb] API + topk_buckets."""
     n, d, qt, kp = 131072, 32, 256, 12  # nb = n/32 = 4096 → hierarchical
     corpus = rng.standard_normal((n, d)).astype(np.float32)
     queries = rng.standard_normal((qt, d)).astype(np.float32)
     aux_mul, aux_add = topk2.prepare_aux(jnp.asarray(corpus), None, "cosine")
     qp = topk2.prepare_queries(jnp.asarray(queries), "cosine")
 
-    bm_nbq = topk2.bucket_scores_pallas_bigq(
-        qp, jnp.asarray(corpus), aux_mul, aux_add, interpret=True,
-        bucket=topk2.BUCKET_LARGE_Q, transpose=False)
-    bm_qnb = topk2.bucket_scores_pallas_bigq(
+    bm_nbq = topk2.bucket_scores_triton(
         qp, jnp.asarray(corpus), aux_mul, aux_add, interpret=True,
         bucket=topk2.BUCKET_LARGE_Q)
-    np.testing.assert_array_equal(np.asarray(bm_nbq).T, np.asarray(bm_qnb))
+    bm_qnb = jnp.asarray(np.asarray(bm_nbq).T)
 
     got = np.sort(np.asarray(topk2.topk_buckets_nbq(bm_nbq, kp)), axis=1)
     want = np.sort(np.asarray(topk2.topk_buckets(bm_qnb, kp)), axis=1)
@@ -339,10 +338,10 @@ def test_bigq_pallas_fine_bucket_interpret(rng):
     aux_mul, aux_add = topk2.prepare_aux(jnp.asarray(corpus), None, "cosine")
     want = np.asarray(topk2.bucket_scores_xla(
         jnp.asarray(queries), jnp.asarray(corpus), aux_mul, aux_add, 32))
-    got = np.asarray(topk2.bucket_scores_pallas_bigq(
+    got = np.asarray(topk2.bucket_scores_triton(
         jnp.asarray(queries), jnp.asarray(corpus), aux_mul, aux_add,
         interpret=True, bucket=32))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.T, want, rtol=1e-5, atol=1e-5)
 
 
 def test_topk_values_min_id_tie_contract(rng):
@@ -368,22 +367,22 @@ def test_topk_values_min_id_tie_contract(rng):
 
 
 def test_midq_pad_to_bigq_matches_oracle(rng, monkeypatch):
-    """32 < Q < 256 routes through the padded Pallas bigq kernel when
-    eligible (benchmarks/exp_midq.py: the blocked-scan fallback is
-    28-40 % slower). Padding queries are zero rows and every step is
+    """32 < Q not a multiple of the kernel's query tile: the kernel pads
+    the batch with zero queries and slices them off again. Every step is
     row-independent per query, so results must equal the oracle
-    exactly. CPU has no Mosaic lowering — force eligibility and run the
-    kernel in interpret mode."""
+    exactly. The CPU has no Triton lowering — force eligibility and run
+    the kernel in interpret mode."""
     n, d, q, k = 2048, 64, 96, 10
     corpus, queries = build(rng, n, d, q)
     aux_mul, aux_add = topk2.prepare_aux(jnp.asarray(corpus), None, "l2")
 
-    orig_kernel = topk2.bucket_scores_pallas_bigq
-    monkeypatch.setattr(topk2, "_bigq_eligible", lambda *a, **kw: True)
+    orig_kernel = topk2.bucket_scores_triton
+    calls = []
+    monkeypatch.setattr(topk2, "_bigq_eligible", lambda n: True)
     monkeypatch.setattr(
         topk2,
-        "bucket_scores_pallas_bigq",
-        lambda *a, **kw: orig_kernel(*a, interpret=True, **kw),
+        "bucket_scores_triton",
+        lambda *a, **kw: calls.append(a[0].shape) or orig_kernel(*a, interpret=True, **kw),
     )
     # jit caches by traced shapes; these (n, d, q) are unique to this
     # test so the patched globals are what get traced
@@ -391,7 +390,54 @@ def test_midq_pad_to_bigq_matches_oracle(rng, monkeypatch):
         jnp.asarray(corpus), jnp.asarray(queries), aux_mul, aux_add, k=k, metric="l2"
     )
 
+    assert calls == [(q, d)]
     assert ids.shape == (q, k)
     want_d, want_i = oracles.topk(oracles.distance(queries, corpus, "l2"), k)
     np.testing.assert_array_equal(np.asarray(ids), want_i)
     np.testing.assert_allclose(np.asarray(dist), want_d, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d,qt,bucket", [(100, 40, 128), (48, 200, 32)])
+def test_triton_kernel_odd_width_and_padded_batch(rng, dtype, d, qt, bucket):
+    """D not a multiple of the K chunk (masked tail chunk) and Q not a
+    multiple of the query tile (zero-padded, sliced off) against the
+    XLA forms, per scan dtype."""
+    n = 1024
+    corpus = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
+    queries = jnp.asarray(rng.standard_normal((qt, d)).astype(np.float32))
+    aux_mul, aux_add = topk2.prepare_aux(corpus, None, "l2")
+    qp = topk2.prepare_queries(queries, "l2")
+    if dtype == "int8":
+        v8, sv = topk2.quantize_corpus_int8(corpus)
+        q8, inv_sq = topk2.quantize_queries_int8(qp)
+        want = topk2.bucket_scores_scan_int8(q8, v8, aux_mul * sv, aux_add, inv_sq, bucket)
+        got = topk2.bucket_scores_triton(
+            q8, v8, aux_mul * sv, aux_add, inv_sq=inv_sq, interpret=True, bucket=bucket
+        )
+    else:
+        cast = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+        qc, cc = qp.astype(cast), corpus.astype(cast)
+        # the kernel accumulates bf16 products in f32: the f32 one-shot
+        # over the same rounded inputs is its reference
+        want = topk2.bucket_scores_xla(
+            qc.astype(jnp.float32), cc.astype(jnp.float32), aux_mul, aux_add, bucket
+        )
+        got = topk2.bucket_scores_triton(
+            qc, cc, aux_mul, aux_add, interpret=True, bucket=bucket
+        )
+    assert got.shape == (n // bucket, qt)
+    np.testing.assert_allclose(np.asarray(got).T, np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def test_phase1_route_by_platform(monkeypatch):
+    """cpu → XLA, gpu → the fused kernel when rows tile, anything else
+    → an error rather than a guess."""
+    monkeypatch.setattr(topk2.jax, "default_backend", lambda: "cpu")
+    assert not topk2._bigq_eligible(1 << 20)
+    monkeypatch.setattr(topk2.jax, "default_backend", lambda: "gpu")
+    assert topk2._bigq_eligible(1 << 20)
+    assert not topk2._bigq_eligible(1000)  # rows do not tile: XLA
+    monkeypatch.setattr(topk2.jax, "default_backend", lambda: "metal")
+    with pytest.raises(NotImplementedError):
+        topk2._bigq_eligible(1 << 20)

@@ -1,9 +1,8 @@
 """Adversarial near-tie corpora pin the BUCKET_PAD selection margin.
 
-topk2 phase-1 selection is bf16-graded even in fp32 mode (HIGH small-Q
-oneshot, DEFAULT-precision Pallas at large Q) — correctness rests on
-the BUCKET_PAD candidate window plus the deterministic tie rule, not on
-bit-exact phase-1 scores. ADVICE r2 asked for that assumption to be
+topk2 phase-1 scores are not bit-exact (3xTF32 in the fused GPU
+kernel, a different reduction order in XLA's dots) — correctness rests
+on the BUCKET_PAD candidate window plus the deterministic tie rule. ADVICE r2 asked for that assumption to be
 PINNED on corpora engineered to stress it, not argued in a comment:
 
 - exact duplicates tied across many more buckets than the candidate
@@ -18,8 +17,9 @@ PINNED on corpora engineered to stress it, not argued in a comment:
 
 Oracle: float64 brute force with the engine tie contract (ascending
 distance, ties → ascending row id). The suite runs on whatever backend
-pytest is on — it exercises the real HIGH / one-pass-bf16 selection on
-TPU, and pins the tie contract + margin mechanics on CPU.
+pytest is on — on the GPU (tests/test_gpu.py re-runs it there) it
+exercises the compiled kernel's selection, and on the CPU it pins the
+tie contract + margin mechanics.
 """
 
 import jax.numpy as jnp
@@ -104,7 +104,7 @@ def test_near_tied_maxima_against_bucket_order(rng, metric, q):
     selector that rounds these ties together keeps the earliest
     buckets and loses the true top-k; HIGH-grade selection plus the
     BUCKET_PAD margin must not. q=256 drives the large-Q lowering
-    (Pallas on TPU, fusable scan on CPU)."""
+    (the fused kernel on the GPU, the blocked scan on the CPU)."""
     u = rng.standard_normal(D).astype(np.float64)
     u /= np.linalg.norm(u)
     # distractor mass well below the planted rows
@@ -136,10 +136,10 @@ def test_near_tied_maxima_against_bucket_order(rng, metric, q):
 
 
 def test_tied_mass_pallas_bigq_interpret(rng):
-    """The large-Q Pallas phase 1 + nbq selection on the tied-mass
-    corpus, in interpret mode (Mosaic has no CPU lowering): the fused
-    kernel's bucket maxima must drive the same stable earliest-bucket
-    choice the XLA lowering makes."""
+    """The large-Q fused phase 1 (Pallas, Triton route) + nbq selection
+    on the tied-mass corpus, in interpret mode (Triton has no CPU
+    lowering): the fused kernel's bucket maxima must drive the same
+    stable earliest-bucket choice the XLA lowering makes."""
     corpus, query = _tied_levels_corpus(rng, "dot")
     k = 16
     q = 256
@@ -149,9 +149,9 @@ def test_tied_mass_pallas_bigq_interpret(rng):
     bucket = topk2.bucket_for(q, N)
     qp = topk2.prepare_queries(jnp.asarray(queries), "dot")
     aux_mul, aux_add = topk2.prepare_aux(jnp.asarray(corpus), None, "dot")
-    bm = topk2.bucket_scores_pallas_bigq(
+    bm = topk2.bucket_scores_triton(
         qp, jnp.asarray(corpus), aux_mul, aux_add,
-        interpret=True, bucket=bucket, transpose=False,
+        interpret=True, bucket=bucket,
     )
     sel = np.asarray(topk2.topk_buckets_nbq(bm, k + topk2.BUCKET_PAD))
 
